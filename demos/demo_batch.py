@@ -31,8 +31,8 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from dotsocp_tpu.models.examples import get_example_2d
-    from dotsocp_tpu.parallel.batch import solve_fleet
+    from dotsocp.models.examples import get_example_2d
+    from dotsocp.parallel.batch import solve_fleet
 
     rng = np.random.default_rng(0)
     r0s, r1s = [], []

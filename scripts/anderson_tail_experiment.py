@@ -21,17 +21,18 @@ the emulated-f64 tail), not iteration count.
 
   python scripts/anderson_tail_experiment.py [problem] [m]
 """
+import os
 import sys, time
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
-from dotsocp_tpu.algorithms.core import LevelConfig
-from dotsocp_tpu.algorithms.variants import InPALMKernels
-from dotsocp_tpu.multilevel.level import initial_scaling, initialize
-from dotsocp_tpu.models.examples import get_example_2d
+from dotsocp.algorithms.core import LevelConfig
+from dotsocp.algorithms.variants import InPALMKernels
+from dotsocp.multilevel.level import initial_scaling, initialize
+from dotsocp.models.examples import get_example_2d
 
 PROBLEM = sys.argv[1] if len(sys.argv) > 1 else "example1"
 N, NT = 65, 17

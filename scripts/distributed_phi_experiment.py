@@ -4,7 +4,7 @@ y/x spatial sharding (SURVEY section 2.5 options (a)/(b)).
 Wall-clock on the 8-virtual-device CPU mesh is meaningless, so the
 comparison inspects the compiled (SPMD-partitioned) HLO: which collectives
 GSPMD inserts, how many, and on which shapes. That is the quantity that
-rides the ICI on real multi-chip hardware. The decision is recorded in
+rides the interconnect on real multi-device hardware. The decision is recorded in
 docs/DESIGN.md.
 
 Run: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -14,7 +14,7 @@ import os
 import re
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 
 import jax
@@ -23,13 +23,13 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 
-from dotsocp_tpu.algorithms.core import LevelConfig
-from dotsocp_tpu.algorithms.variants import InPALMKernels, SgsKernels
-from dotsocp_tpu.multilevel.level import initial_scaling, initialize
-from dotsocp_tpu.models.examples import get_example_2d
-from dotsocp_tpu.parallel.sharding import constrain, make_mesh, state_shardings
+from dotsocp.algorithms.core import LevelConfig
+from dotsocp.algorithms.variants import InPALMKernels, SgsKernels
+from dotsocp.multilevel.level import initial_scaling, initialize
+from dotsocp.models.examples import get_example_2d
+from dotsocp.parallel.sharding import constrain, make_mesh, state_shardings
 
-from dotsocp_tpu.utils.hlo import collective_stats  # shared parser
+from dotsocp.utils.hlo import collective_stats  # shared parser
 
 
 def report(name, fn, arg):

@@ -7,15 +7,16 @@ stalls) on each bundled problem, including the hard ones (example3's
 exp-exp density, circle's discontinuous discs). Results are recorded in
 BASELINE.md; the CI-sized counterpart is tests/test_f32_robustness.py.
 
-Run on TPU:   python scripts/f32_sweep.py
+Run on GPU:   python scripts/f32_sweep.py
 Run on CPU:   python scripts/f32_sweep.py --cpu
 """
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-from dotsocp_tpu.utils.cache import enable_compilation_cache
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from dotsocp.utils.cache import enable_compilation_cache
 
 enable_compilation_cache()
 import jax
@@ -25,8 +26,8 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from dotsocp_tpu.models.examples import get_example_2d
-from dotsocp_tpu.multilevel.solve import solve_dot
+from dotsocp.models.examples import get_example_2d
+from dotsocp.multilevel.solve import solve_dot
 
 EXAMPLES = ["example1", "example2", "example3", "example4", "example5",
             "example7", "circle", "DOTmark_4stitch"]

@@ -1,5 +1,5 @@
 """Fleet-throughput benchmark: B independent 129x129x33 DOT instances
-solved in lockstep on one chip (the embarrassingly-parallel BASELINE.md
+solved in lockstep on one device (the embarrassingly-parallel BASELINE.md
 axis; the reference has no batch mode at all).
 
 Eight *different* bundled problems (example1/2/3/4/circle/DOTmark + two
@@ -13,7 +13,7 @@ nt=33, 129x129, tol 1e-4, 3 levels, inPALM. Reports instances/s and the
 ratio to solving the same 8 problems sequentially with the single-instance
 device driver.
 
-Run:  python scripts/fleet_bench.py            (TPU)
+Run:  python scripts/fleet_bench.py            (GPU)
       python scripts/fleet_bench.py --cpu      (CPU smoke, small grid)
 """
 import json
@@ -35,10 +35,10 @@ else:
 import jax.numpy as jnp
 import numpy as np
 
-from dotsocp_tpu.utils.cache import enable_compilation_cache
-from dotsocp_tpu.models.examples import get_example_2d, _gaussian2d, _normalize
-from dotsocp_tpu.parallel.batch import pick_fleet_mode, solve_batch, solve_fleet
-from dotsocp_tpu.multilevel.solve import solve_dot
+from dotsocp.utils.cache import enable_compilation_cache
+from dotsocp.models.examples import get_example_2d, _gaussian2d, _normalize
+from dotsocp.parallel.batch import pick_fleet_mode, solve_batch, solve_fleet
+from dotsocp.multilevel.solve import solve_dot
 
 enable_compilation_cache()
 

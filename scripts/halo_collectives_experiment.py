@@ -23,11 +23,11 @@ import jax.numpy as jnp
 
 from distributed_phi_experiment import report
 
-from dotsocp_tpu.algorithms.core import LevelConfig
-from dotsocp_tpu.algorithms.variants import InPALMKernels
-from dotsocp_tpu.multilevel.level import initial_scaling, initialize
-from dotsocp_tpu.models.examples import get_example_2d
-from dotsocp_tpu.parallel.sharding import constrain, make_mesh, state_shardings
+from dotsocp.algorithms.core import LevelConfig
+from dotsocp.algorithms.variants import InPALMKernels
+from dotsocp.multilevel.level import initial_scaling, initialize
+from dotsocp.models.examples import get_example_2d
+from dotsocp.parallel.sharding import constrain, make_mesh, state_shardings
 
 
 def main():

@@ -15,9 +15,10 @@ Halpern anchoring restarts every 100 iterations, which discards the
 high-accuracy momentum exactly where the tail needs it. Default tail
 method stays the sweep's method; ``refine_method`` remains available.
 """
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 
 jax.config.update("jax_platforms", "cpu")
@@ -26,8 +27,8 @@ jax.config.update("jax_enable_x64", True)
 import numpy as np          # noqa: E402
 import jax.numpy as jnp     # noqa: E402
 
-from dotsocp_tpu.multilevel.solve import solve_dot  # noqa: E402
-from dotsocp_tpu.models.examples import get_example_2d  # noqa: E402
+from dotsocp.multilevel.solve import solve_dot  # noqa: E402
+from dotsocp.models.examples import get_example_2d  # noqa: E402
 
 
 def run(problem, n, nt, refine_method):

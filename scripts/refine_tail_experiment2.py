@@ -9,9 +9,10 @@ periods (the knob the round-3 experiment never varied).
 
   python scripts/refine_tail_experiment2.py
 """
+import os
 import sys, time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 
 jax.config.update("jax_platforms", "cpu")
@@ -20,8 +21,8 @@ jax.config.update("jax_enable_x64", True)
 import numpy as np          # noqa: E402
 import jax.numpy as jnp     # noqa: E402
 
-from dotsocp_tpu.multilevel.solve import solve_dot  # noqa: E402
-from dotsocp_tpu.models.examples import get_example_2d  # noqa: E402
+from dotsocp.multilevel.solve import solve_dot  # noqa: E402
+from dotsocp.models.examples import get_example_2d  # noqa: E402
 
 
 def run(problem, n, nt, refine_method, restart=100):

@@ -16,10 +16,11 @@ Run:  python scripts/w2_convergence.py [--dim 1|2] [--tol 1e-6]
 """
 import argparse
 import math
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
@@ -37,9 +38,9 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from dotsocp_tpu.models.examples import _gaussian2d, _normalize
-    from dotsocp_tpu.multilevel.solve import solve_dot
-    from dotsocp_tpu.utils.objective import (
+    from dotsocp.models.examples import _gaussian2d, _normalize
+    from dotsocp.multilevel.solve import solve_dot
+    from dotsocp.utils.objective import (
         gaussian_w2_squared, transport_cost,
     )
 

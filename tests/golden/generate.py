@@ -45,21 +45,21 @@ def run_config(name):
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from dotsocp_tpu.multilevel.solve import solve_dot
+    from dotsocp.multilevel.solve import solve_dot
 
     family, problem, n, nt, levels, tol, method, extra = CONFIGS[name]
     opts = {"tol": tol, "driver": "host", **extra}
     kwargs = {}
     if family == "1d":
-        from dotsocp_tpu.models.examples import get_example_1d
+        from dotsocp.models.examples import get_example_1d
 
         rho0, rho1 = get_example_1d(problem, n)
     elif family == "2d":
-        from dotsocp_tpu.models.examples import get_example_2d
+        from dotsocp.models.examples import get_example_2d
 
         rho0, rho1 = get_example_2d(problem, n, n)
     else:
-        from dotsocp_tpu.models.wdot2d import (
+        from dotsocp.models.wdot2d import (
             barrier_love_heart,
             ensure_barrier_validity,
             get_example_w2d,

@@ -5,7 +5,7 @@ of two Gaussians."""
 import pytest
 import numpy as np
 
-from dotsocp_tpu.multilevel.solve import solve_dot
+from dotsocp.multilevel.solve import solve_dot
 
 
 @pytest.mark.slow

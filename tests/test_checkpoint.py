@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from dotsocp_tpu.models.examples import get_example_2d
-from dotsocp_tpu.multilevel.solve import solve_dot
+from dotsocp.models.examples import get_example_2d
+from dotsocp.multilevel.solve import solve_dot
 
 
 def test_resume_matches_uninterrupted_fast(tmp_path):
@@ -64,7 +64,7 @@ def test_resume_matches_uninterrupted(tmp_path):
 def test_pytree_roundtrip(tmp_path):
     import jax.numpy as jnp
 
-    from dotsocp_tpu.utils.checkpoint import load_pytree, save_pytree
+    from dotsocp.utils.checkpoint import load_pytree, save_pytree
 
     tree = {"a": jnp.arange(5.0), "b": (jnp.ones((2, 3)), jnp.zeros(())) }
     path = str(tmp_path / "t.npz")

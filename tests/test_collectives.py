@@ -13,12 +13,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dotsocp_tpu.algorithms.core import LevelConfig
-from dotsocp_tpu.algorithms.variants import InPALMKernels, SgsKernels
-from dotsocp_tpu.multilevel.level import initial_scaling, initialize
-from dotsocp_tpu.models.examples import get_example_2d
-from dotsocp_tpu.parallel.sharding import constrain, make_mesh, state_shardings
-from dotsocp_tpu.utils.hlo import collective_bytes
+from dotsocp.algorithms.core import LevelConfig
+from dotsocp.algorithms.variants import InPALMKernels, SgsKernels
+from dotsocp.multilevel.level import initial_scaling, initialize
+from dotsocp.models.examples import get_example_2d
+from dotsocp.parallel.sharding import constrain, make_mesh, state_shardings
+from dotsocp.utils.hlo import collective_bytes
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"

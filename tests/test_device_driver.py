@@ -4,8 +4,8 @@ final residuals (they encode the same reference state machine)."""
 import numpy as np
 import pytest
 
-from dotsocp_tpu.models.examples import get_example_2d
-from dotsocp_tpu.multilevel.solve import solve_dot
+from dotsocp.models.examples import get_example_2d
+from dotsocp.multilevel.solve import solve_dot
 
 
 @pytest.mark.parametrize("method", [

@@ -42,7 +42,7 @@ def test_two_process_sharded_solve_matches_single_process():
     env.pop("XLA_FLAGS", None)
     procs = [
         subprocess.Popen(
-            [sys.executable, "-m", "dotsocp_tpu.parallel.distributed",
+            [sys.executable, "-m", "dotsocp.parallel.distributed",
              "--coordinator", f"localhost:{port}",
              "--num-processes", "2", "--process-id", str(i),
              "--local-devices", "4", "--levels", str(LEVELS),
@@ -81,8 +81,8 @@ def test_two_process_sharded_solve_matches_single_process():
     # and the cross-process mesh run matches a single-process solve
     import jax.numpy as jnp
 
-    from dotsocp_tpu.models.examples import get_example_2d
-    from dotsocp_tpu.multilevel.solve import solve_dot
+    from dotsocp.models.examples import get_example_2d
+    from dotsocp.multilevel.solve import solve_dot
 
     rho0, rho1 = get_example_2d("example2", 33, 33)
     out, hml, _ = solve_dot(

@@ -4,15 +4,14 @@ The f32 KKT floor is ~1e-4 (BASELINE.md) — the same magnitude as the
 reference's default 2D tolerance (``demo_dot2d.m:13``), so a stall would
 silently produce a non-converged "result". Every bundled 2D example must
 reach tol in f32, conserve mass, and not exhaust maxit. The full-size
-sweep (129x129x33 on TPU) lives in scripts/f32_sweep.py with results
-recorded in BASELINE.md.
+sweep (129x129x33 on the accelerator) lives in scripts/f32_sweep.py.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dotsocp_tpu.models.examples import get_example_2d
-from dotsocp_tpu.multilevel.solve import solve_dot
+from dotsocp.models.examples import get_example_2d
+from dotsocp.multilevel.solve import solve_dot
 
 EXAMPLES = ["example1", "example2", "example3", "example4", "example5",
             "example7", "circle", "DOTmark_4stitch"]

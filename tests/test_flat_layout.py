@@ -6,17 +6,17 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from dotsocp_tpu.algorithms.core import LevelConfig
-from dotsocp_tpu.algorithms.variants import (
+from dotsocp.algorithms.core import LevelConfig
+from dotsocp.algorithms.variants import (
     AccADMMKernels,
     InPALMKernels,
     PALMKernels,
 )
-from dotsocp_tpu.multilevel.level import initialize, initial_scaling
-from dotsocp_tpu.models.wdot2d import get_weight_by_barrier
-from dotsocp_tpu.ops.engine import OpsFlat, Ops3D
-from dotsocp_tpu.ops.geometry import Geometry
-from dotsocp_tpu.ops.staggered import Staggered
+from dotsocp.multilevel.level import initialize, initial_scaling
+from dotsocp.models.wdot2d import get_weight_by_barrier
+from dotsocp.ops.engine import OpsFlat, Ops3D
+from dotsocp.ops.geometry import Geometry
+from dotsocp.ops.staggered import Staggered
 
 
 def _rand_problem(shape, seed=0):
@@ -157,7 +157,7 @@ def test_flat_weighted_matches_3d():
 def test_solve_dot_flat_default_converges():
     """solve_dot's default layout (flat) reaches the same iteration count
     as the shaped layout on a small 2-level problem."""
-    from dotsocp_tpu.multilevel.solve import solve_dot
+    from dotsocp.multilevel.solve import solve_dot
 
     rho0, rho1 = _rand_problem((17, 17), seed=7)
     outs = {}

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dotsocp_tpu.ops.engine import Ops3D, make_ops
-from dotsocp_tpu.ops.geometry import Geometry
-from dotsocp_tpu.ops.staggered import Staggered
-from dotsocp_tpu.parallel.sharding import make_mesh
+from dotsocp.ops.engine import Ops3D, make_ops
+from dotsocp.ops.geometry import Geometry
+from dotsocp.ops.staggered import Staggered
+from dotsocp.parallel.sharding import make_mesh
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"
@@ -107,8 +107,8 @@ def test_halo_1d_ops():
 def test_halo_sgs_sweep_matches_jnp(setup2d):
     """HaloSGS (one shard_map, ppermute halo pulls per half-sweep) must
     reproduce the single-device red-black sweep exactly."""
-    from dotsocp_tpu.ops.halo_engine import HaloSGS
-    from dotsocp_tpu.ops.sgs import make_sgs
+    from dotsocp.ops.halo_engine import HaloSGS
+    from dotsocp.ops.sgs import make_sgs
 
     geom, _, oh, phi, _, _ = setup2d
     ref = make_sgs(geom, D=1.0, dtype=jnp.float64)
@@ -187,8 +187,8 @@ def test_halo_t_ops_match(setup_t):
 
 def test_halo_t_sgs_sweep(setup_t):
     """HaloSGS with a sharded t axis (ppermute on all three axes)."""
-    from dotsocp_tpu.ops.halo_engine import HaloSGS
-    from dotsocp_tpu.ops.sgs import make_sgs
+    from dotsocp.ops.halo_engine import HaloSGS
+    from dotsocp.ops.sgs import make_sgs
 
     geom, _, oh, phi, _, _ = setup_t
     ref = make_sgs(geom, D=1.0, dtype=jnp.float64)
@@ -209,8 +209,8 @@ def test_halo_sgs_solve_matches_trajectory():
     """sGS-inPALM under a spatial mesh (halo is now the default mesh
     layout) must reproduce the single-device trajectory — the sweep, its
     block residual, and the win-count sigma machinery all agree."""
-    from dotsocp_tpu.models.examples import get_example_2d
-    from dotsocp_tpu.multilevel.solve import solve_dot
+    from dotsocp.models.examples import get_example_2d
+    from dotsocp.multilevel.solve import solve_dot
 
     rho0, rho1 = get_example_2d("example2", 33, 33)
     opts = {"tol": 1e-3, "driver": "device", "maxit": 2000}
@@ -229,8 +229,8 @@ def test_halo_sgs_solve_matches_trajectory():
 
 def test_halo_t_solve_matches_trajectory():
     """End-to-end inPALM on a (t, y, x) mesh through the halo engine."""
-    from dotsocp_tpu.models.examples import get_example_2d
-    from dotsocp_tpu.multilevel.solve import solve_dot
+    from dotsocp.models.examples import get_example_2d
+    from dotsocp.multilevel.solve import solve_dot
 
     rho0, rho1 = get_example_2d("example2", 17, 17)
     opts = {"tol": 1e-3, "driver": "device"}
@@ -286,8 +286,8 @@ def test_halo_3d_ops_match():
 def test_halo_3d_solve_matches_trajectory():
     """End-to-end 3D solve on a (z, y, x) mesh (halo is the default) vs
     single-device, plus a PARTIAL (y, x) mesh leaving nz unsharded."""
-    from dotsocp_tpu.models.examples import get_example_3d
-    from dotsocp_tpu.multilevel.solve import solve_dot
+    from dotsocp.models.examples import get_example_3d
+    from dotsocp.multilevel.solve import solve_dot
 
     rho0, rho1 = get_example_3d("gaussian", 9, 9, 9)
     opts = {"tol": 5e-3, "driver": "device", "maxit": 600}
@@ -307,8 +307,8 @@ def test_halo_3d_solve_matches_trajectory():
 def test_halo_solve_matches_trajectory():
     """Full multilevel solve on the halo layout (opts mesh + layout='halo')
     vs the single-device run: identical iteration counts, close KKT."""
-    from dotsocp_tpu.models.examples import get_example_2d
-    from dotsocp_tpu.multilevel.solve import solve_dot
+    from dotsocp.models.examples import get_example_2d
+    from dotsocp.multilevel.solve import solve_dot
 
     rho0, rho1 = get_example_2d("example2", 33, 33)
     opts = {"tol": 1e-4, "driver": "device"}

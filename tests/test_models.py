@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from dotsocp_tpu.models import examples as ex
-from dotsocp_tpu.models import wdot2d as w2
+from dotsocp.models import examples as ex
+from dotsocp.models import wdot2d as w2
 
 
 def test_1d_examples_normalized():
@@ -58,7 +58,7 @@ def test_weight_by_barrier_layout():
 
 
 def test_weight_restriction_log_space_keeps_walls():
-    from dotsocp_tpu.multilevel.transfer import restrict_staggered
+    from dotsocp.multilevel.transfer import restrict_staggered
 
     barrier = w2.barrier_circle_pillar()
     wt = w2.get_weight_by_barrier(65, 65, 17, barrier)

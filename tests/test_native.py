@@ -4,12 +4,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dotsocp_tpu.ops.geometry import Geometry
-from dotsocp_tpu.ops.staggered import Staggered
-from dotsocp_tpu.ops.cone import bfd, bfd_T, proj_soc
-from dotsocp_tpu.ops.sgs import make_sgs
+from dotsocp.ops.geometry import Geometry
+from dotsocp.ops.staggered import Staggered
+from dotsocp.ops.cone import bfd, bfd_T, proj_soc
+from dotsocp.ops.sgs import make_sgs
 
-native = pytest.importorskip("dotsocp_tpu.native")
+native = pytest.importorskip("dotsocp.native")
 
 
 @pytest.fixture(scope="module")

@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dotsocp_tpu.models.examples import (
+from dotsocp.models.examples import (
     _gaussian2d, _normalize, get_example_1d,
 )
-from dotsocp_tpu.multilevel.solve import solve_dot
-from dotsocp_tpu.utils.objective import gaussian_w2_squared, transport_cost
+from dotsocp.multilevel.solve import solve_dot
+from dotsocp.utils.objective import gaussian_w2_squared, transport_cost
 
 
 def test_1d_gaussian_matches_analytic_w2():
@@ -56,7 +56,7 @@ def test_w2_convergence_order_1d():
     (pre-asymptotic ~O(h^2) then ~O(h) — the staggered recovery's
     face/node averaging is first-order). Full table incl. nx=513
     (2.65e-4) in BASELINE.md."""
-    from dotsocp_tpu.models.examples import _normalize as _norm1
+    from dotsocp.models.examples import _normalize as _norm1
 
     m0, m1, s0, s1 = 0.35, 0.65, 0.07, 0.05
     ref = gaussian_w2_squared(m0, m1, s0, s1)
@@ -74,13 +74,13 @@ def test_w2_convergence_order_1d():
 
 
 def test_w2_distance_api():
-    """Top-level convenience wrapper: dotsocp_tpu.w2_distance on the 1D
+    """Top-level convenience wrapper: dotsocp.w2_distance on the 1D
     Gaussian pair matches the closed form (sqrt of the solver's
     Benamou-Brenier energy; beyond-reference API)."""
-    import dotsocp_tpu
+    import dotsocp
 
     rho0, rho1 = get_example_1d("gaussian", 129)
-    w2 = dotsocp_tpu.w2_distance(rho0, rho1, nt=17, level_n=2,
+    w2 = dotsocp.w2_distance(rho0, rho1, nt=17, level_n=2,
                                  opts={"tol": 1e-5}, dtype=jnp.float64)
     ref = np.sqrt(gaussian_w2_squared(0.3, 0.7, 0.1, 0.05))
     np.testing.assert_allclose(w2, ref, rtol=2e-2)

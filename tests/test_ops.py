@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dotsocp_tpu.ops.geometry import Geometry
-from dotsocp_tpu.ops import staggered as stg
-from dotsocp_tpu.ops.grad import grad, grad_T
-from dotsocp_tpu.ops.cone import bfd, bfd_T, proj_soc, oper_q_diag
-from dotsocp_tpu.ops.poisson import make_dct_poisson, dct_matrix
+from dotsocp.ops.geometry import Geometry
+from dotsocp.ops import staggered as stg
+from dotsocp.ops.grad import grad, grad_T
+from dotsocp.ops.cone import bfd, bfd_T, proj_soc, oper_q_diag
+from dotsocp.ops.poisson import make_dct_poisson, dct_matrix
 
 GEOMS = [
     Geometry(nt=5, space=(9,)),
@@ -187,11 +187,11 @@ def test_split_dct_precision():
     double-word f32 matmuls with chunked f64 accumulation. Accuracy is set
     by the f32 accumulation within a chunk (~sqrt(chunk) ulp), so the win
     over plain f32 (~sqrt(n) ulp) shows on long axes: measured at n=513,
-    chunk=128: ~3e-7 vs ~7e-7 relative (2.5x; the gap widens on TPU where plain f32 matmuls are bf16-pass approximations). The refine tail builds on this
+    chunk=128: ~3e-7 vs ~7e-7 relative (2.5x). The refine tail builds on this
     with a measured ~4e-6 KKT floor (multilevel/solve.py refine phases)."""
     import jax
 
-    from dotsocp_tpu.ops.poisson import (
+    from dotsocp.ops.poisson import (
         _apply_axis, _apply_axis_split, dct_matrix,
     )
 
@@ -221,7 +221,7 @@ def test_split_dct_precision():
 def test_neumann_ata_stencil_matches_spectrum():
     """neumann_ata_apply (the IR residual operator) is spectrally identical
     to the DCT kernel: C^T diag(eigenvalues) C x == A^T A x."""
-    from dotsocp_tpu.ops.poisson import (
+    from dotsocp.ops.poisson import (
         _apply_axis, neumann_ata_apply, neumann_eigenvalues,
     )
 

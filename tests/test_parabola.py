@@ -3,7 +3,7 @@ numpy's companion-matrix roots and projection properties."""
 import jax.numpy as jnp
 import numpy as np
 
-from dotsocp_tpu.ops.parabola import proj_parab
+from dotsocp.ops.parabola import proj_parab
 
 
 def test_matches_polyroot_and_idempotent(rng):

@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dotsocp_tpu.algorithms.core import LevelConfig
-from dotsocp_tpu.algorithms.variants import InPALMKernels
-from dotsocp_tpu.models.examples import get_example_2d
-from dotsocp_tpu.multilevel.level import initial_scaling, initialize
-from dotsocp_tpu.parallel.sharding import (
+from dotsocp.algorithms.core import LevelConfig
+from dotsocp.algorithms.variants import InPALMKernels
+from dotsocp.models.examples import get_example_2d
+from dotsocp.multilevel.level import initial_scaling, initialize
+from dotsocp.parallel.sharding import (
     constrain,
     factorize,
     make_mesh,
@@ -118,7 +118,7 @@ def test_sharded_multilevel_solve_matches_trajectory():
     final KKT, recovered density — must match the single-device run
     (sigma updates and rescales included; only collective-reduction
     rounding differs)."""
-    from dotsocp_tpu.multilevel.solve import solve_dot
+    from dotsocp.multilevel.solve import solve_dot
 
     rho0, rho1 = get_example_2d("example2", 33, 33)
     opts = {"tol": 1e-4, "driver": "device"}

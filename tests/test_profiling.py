@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dotsocp_tpu.models.examples import get_example_2d
-from dotsocp_tpu.multilevel.solve import solve_dot
+from dotsocp.models.examples import get_example_2d
+from dotsocp.multilevel.solve import solve_dot
 
 ALGS = ["inPALM", "ALG2", "PALM", "acc-ADMM", "sGS-inPALM", "acc-sGS-ADMM"]
 
@@ -34,7 +34,7 @@ def test_profile_phases_all_algorithms(method):
 
 
 def test_profile_weighted():
-    from dotsocp_tpu.models import wdot2d as W
+    from dotsocp.models import wdot2d as W
 
     n, nt = 17, 5
     rho0, rho1 = W.get_example_w2d("example1", n, n)

@@ -1,12 +1,12 @@
 """Mixed-precision refinement (opts['refine_tol']): f32 multilevel warm
 start + float64 tail on the finest level — the supported route to
-reference-grade tolerances (1e-5/1e-6) on TPU, where f64 iterations are
-software-emulated (~20x an f32 iteration)."""
+reference-grade tolerances (1e-5/1e-6), below the f32 KKT floor
+(~1e-4)."""
 import numpy as np
 import jax.numpy as jnp
 
-from dotsocp_tpu.multilevel.level import check_mass_conservation
-from dotsocp_tpu.multilevel.solve import solve_dot
+from dotsocp.multilevel.level import check_mass_conservation
+from dotsocp.multilevel.solve import solve_dot
 
 
 def _problem(n, seed=0):
@@ -82,9 +82,8 @@ def test_refine_method_invalid():
 def test_refine_split_dct_two_phase():
     """refine_dct_split=True runs the tail on split-f32 DCT matmuls down
     to the path's ~4e-6 KKT floor, then true-f64 DCT to the target
-    (two phases below the floor; measured on v5e at 129^2x33: tail wall
-    2.3x faster at 1e-6, 3.6x at 1e-5). 'auto' enables this on TPU only —
-    CPU f64 GEMM is native, so this test forces the flag."""
+    (two phases below the floor). 'auto' never selects it, so this test
+    forces the flag."""
     rho0, rho1 = _problem(17, seed=2)
     out, hml, h = solve_dot(
         rho0, rho1, 5, 1,
@@ -101,7 +100,7 @@ def test_refine_split_dct_two_phase():
 
 
 def test_refine_ir_dct_single_phase():
-    """refine_dct_split='ir' (the TPU 'auto' default since round 5): the
+    """refine_dct_split='ir' (what 'auto' selects below 1e-6): the
     whole f64 tail runs as ONE phase on f32 DCTs + f64-residual iterative
     refinement (ops/poisson.py:_solve_ir) — split-level per-iteration cost
     with no accuracy floor, so targets below the split path's ~2e-8*n
@@ -128,7 +127,7 @@ def test_refine_under_mesh_uses_plain_f64():
     f32-grade phi). The tail still converges, on the plain path."""
     import jax
 
-    from dotsocp_tpu.parallel.sharding import make_mesh
+    from dotsocp.parallel.sharding import make_mesh
 
     if len(jax.devices()) < 4:
         import pytest
@@ -151,7 +150,7 @@ def test_refine_under_mesh_uses_plain_f64():
 def test_refine_ir_rejected_under_mesh():
     import pytest
 
-    from dotsocp_tpu.parallel.sharding import make_mesh
+    from dotsocp.parallel.sharding import make_mesh
 
     rho0, rho1 = _problem(17, seed=6)
     mesh = make_mesh(4, axis_names=("y", "x"))

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dotsocp_tpu.models.examples import get_example_1d, get_example_2d
-from dotsocp_tpu.multilevel.solve import solve_dot
+from dotsocp.models.examples import get_example_1d, get_example_2d
+from dotsocp.multilevel.solve import solve_dot
 
 
 def _stop_kkt(h, pdf=True):
@@ -83,7 +83,7 @@ def test_multilevel_matches_single_level():
 
 def test_weighted_barrier_blocks_mass():
     """Weighted solve with a wall keeps density out of the barrier."""
-    from dotsocp_tpu.models.wdot2d import (
+    from dotsocp.models.wdot2d import (
         barrier_circle_pillar,
         ensure_barrier_validity,
         get_example_w2d,
@@ -114,7 +114,7 @@ def test_weighted_barrier_blocks_mass():
 
 
 def test_weighted_accadmm_converges():
-    from dotsocp_tpu.models.wdot2d import (
+    from dotsocp.models.wdot2d import (
         barrier_love_heart,
         ensure_barrier_validity,
         get_example_w2d,
@@ -135,7 +135,7 @@ def test_weighted_accadmm_converges():
 
 
 def test_float32_path():
-    """The f32 (TPU-default) path reaches 1e-4 on a small 2D problem."""
+    """The f32 path reaches 1e-4 on a small 2D problem."""
     rho0, rho1 = get_example_2d("example2", 33, 33)
     out, _, h = solve_dot(
         rho0, rho1, nt=9, level_n=1,

@@ -8,13 +8,13 @@ import jax.numpy as jnp
 import pytest
 from scipy.fft import dctn, idctn
 
-from dotsocp_tpu.algorithms.core import LevelConfig
-from dotsocp_tpu.algorithms.variants import InPALMKernels
-from dotsocp_tpu.models.examples import get_example_2d
-from dotsocp_tpu.multilevel.level import initial_scaling, initialize
-from dotsocp_tpu.ops.poisson import neumann_eigenvalues
+from dotsocp.algorithms.core import LevelConfig
+from dotsocp.algorithms.variants import InPALMKernels
+from dotsocp.models.examples import get_example_2d
+from dotsocp.multilevel.level import initial_scaling, initialize
+from dotsocp.ops.poisson import neumann_eigenvalues
 
-native = pytest.importorskip("dotsocp_tpu.native")
+native = pytest.importorskip("dotsocp.native")
 
 
 def _np_poisson_solver(geom, D):

@@ -3,7 +3,7 @@ import os
 
 import numpy as np
 
-from dotsocp_tpu.viz import plots
+from dotsocp.viz import plots
 
 
 def _fake_solution():
@@ -98,7 +98,7 @@ def test_show_evolution_3d_renders(tmp_path):
 
 
 def test_example_3d_generators():
-    from dotsocp_tpu.models.examples import get_example_3d
+    from dotsocp.models.examples import get_example_3d
 
     for prob in ("gaussian", "split8"):
         rho0, rho1 = get_example_3d(prob, 9, 11, 13)

@@ -4,8 +4,8 @@ and device drivers agreeing."""
 import numpy as np
 import pytest
 
-from dotsocp_tpu.models import wdot2d as W
-from dotsocp_tpu.multilevel.solve import solve_dot
+from dotsocp.models import wdot2d as W
+from dotsocp.multilevel.solve import solve_dot
 
 
 @pytest.fixture(scope="module")
@@ -42,9 +42,9 @@ def test_solver_cache_weight_key_is_content_based(problem):
     first weight's addresses are recycled)."""
     import jax.numpy as jnp
 
-    from dotsocp_tpu.algorithms.driver import SolveOptions
-    from dotsocp_tpu.multilevel.level import initialize
-    from dotsocp_tpu.multilevel.solve import _solver_cache_key
+    from dotsocp.algorithms.driver import SolveOptions
+    from dotsocp.multilevel.level import initialize
+    from dotsocp.multilevel.solve import _solver_cache_key
 
     rho0, rho1, nt, weight, barrier, mask = problem
     nx = ny = rho0.shape[0]
@@ -55,7 +55,7 @@ def test_solver_cache_weight_key_is_content_based(problem):
     def key(w):
         lv = initialize(rho0, rho1, nt, dtype=jnp.float32, weight=w)
         return _solver_cache_key("inPALM", lv, o, jnp.float32, "device",
-                                 None, None, False, "flat")
+                                 None, None, "flat")
 
     assert key(weight) == key(w_same)
     assert key(weight) != key(w_diff)
